@@ -1,6 +1,6 @@
 import numpy as np
 
-from gnn_tail_generalization_tpu.graph import analysis
+from gnn_tail_generalization.graph import analysis
 
 
 def test_partial_sorted_idx_median_halving():

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gnn_tail_generalization_tpu.config import build_config
-from gnn_tail_generalization_tpu.data.datasets import prepare
-from gnn_tail_generalization_tpu.data.synthetic import synthetic_planetoid
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.train import checkpoint, loops
-from gnn_tail_generalization_tpu.utils import debug
+from gnn_tail_generalization.config import build_config
+from gnn_tail_generalization.data.datasets import prepare
+from gnn_tail_generalization.data.synthetic import synthetic_planetoid
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.train import checkpoint, loops
+from gnn_tail_generalization.utils import debug
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -20,7 +20,7 @@ def test_checkpoint_roundtrip(tmp_path):
                    "b": jnp.zeros(3)},
         "epoch": 7,
     }
-    p = str(tmp_path / "ckpt.msgpack")
+    p = str(tmp_path / "ckpt.npz")
     checkpoint.save_pytree(state, p)
     template = jax.tree.map(jnp.zeros_like, state["params"])
     restored = checkpoint.load_pytree({"params": template, "epoch": 0}, p)
@@ -63,7 +63,7 @@ def test_spmm_edges_per_sec_positive(rng):
 
 
 def test_plot_curve_writes_png(tmp_path):
-    from gnn_tail_generalization_tpu.utils.records import plot_curve
+    from gnn_tail_generalization.utils.records import plot_curve
 
     curve = np.sin(np.linspace(0, 6, 200)) + np.random.default_rng(0).normal(
         0, 0.1, 200)
@@ -77,7 +77,7 @@ def test_tensorrex_grid_grows_across_cells(tmp_path):
     """main.py --prog per-cell resumption: a second cell with larger
     coordinates must grow the shared grid instead of asserting (round-2
     review finding)."""
-    from gnn_tail_generalization_tpu.utils.records import TensorRex
+    from gnn_tail_generalization.utils.records import TensorRex
 
     path = str(tmp_path / "rex.npy")
     r1 = TensorRex(path, grid_shape=(1, 1), record_len=3, grow_to_fit=True)

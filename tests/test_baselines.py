@@ -3,9 +3,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.baselines import api, egi_bound, mi
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.utils.records import TensorRex, save_curve, load_curve
+from gnn_tail_generalization.baselines import api, egi_bound, mi
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.utils.records import TensorRex, save_curve, load_curve
 
 
 def ring(n=60, extra=80, seed=0):
@@ -39,7 +39,7 @@ def test_gen_baseline_embs_all_algs():
 
 
 def test_dgi_loss_decreases():
-    from gnn_tail_generalization_tpu.baselines.dgi import train_dgi
+    from gnn_tail_generalization.baselines.dgi import train_dgi
 
     e = core.standard_pipeline(ring(), 60)
     g = core.build_graph(e, 60)
@@ -78,7 +78,7 @@ def test_save_load_curve(tmp_path):
 def test_ego_flow_sampler_structure(rng):
     """Hop-t edges go frontier -> sampled IN-neighbor; masks kill frontier
     nodes without predecessors; frontiers chain across hops."""
-    from gnn_tail_generalization_tpu.baselines.egi import sample_ego_flows
+    from gnn_tail_generalization.baselines.egi import sample_ego_flows
 
     e = ring()
     n, hops, fanout = 60, 2, 3
@@ -104,7 +104,7 @@ def test_ego_flow_sampler_structure(rng):
 def test_subg_discriminator_hop_semantics(rng):
     """Hop-0 scores must see m=0 and root=emb (apply_edges runs BEFORE the
     push, subgi.py:291); hop-1 scores see the pushed root means."""
-    from gnn_tail_generalization_tpu.baselines.egi import (
+    from gnn_tail_generalization.baselines.egi import (
         EgoFlows, SubGDiscriminator,
     )
 
@@ -142,7 +142,7 @@ def test_subg_discriminator_hop_semantics(rng):
 
 
 def test_egi_trains_and_loss_moves(rng):
-    from gnn_tail_generalization_tpu.baselines.egi import train_egi
+    from gnn_tail_generalization.baselines.egi import train_egi
 
     e_raw = ring()
     e = core.standard_pipeline(e_raw, 60)

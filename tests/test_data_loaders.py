@@ -6,9 +6,9 @@ import pickle
 import numpy as np
 import scipy.sparse as ssp
 
-from gnn_tail_generalization_tpu.config import build_config
-from gnn_tail_generalization_tpu.data import ogb, planetoid, webkb
-from gnn_tail_generalization_tpu.data.datasets import load_dataset
+from gnn_tail_generalization.config import build_config
+from gnn_tail_generalization.data import ogb, planetoid, webkb
+from gnn_tail_generalization.data.datasets import load_dataset
 
 
 def write_planetoid(tmp, name="cora", n_allx=60, n_test=20, d=10, c=3):

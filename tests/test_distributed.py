@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.ops.spmm import spmm
-from gnn_tail_generalization_tpu.parallel import distributed as dist
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.ops.spmm import spmm
+from gnn_tail_generalization.parallel import distributed as dist
 
 
 def test_eight_devices_available():
@@ -30,7 +30,7 @@ def test_dist_spmm_matches_single_device(rng):
     xd = jax.device_put(jnp.asarray(xp), sh)
     y = dist.dist_spmm(mesh, sg, xd)
 
-    g = core.build_graph(ei, n, with_dense=False)
+    g = core.build_graph(ei, n)
     y_ref = spmm(g, jnp.asarray(x), "gather")
     np.testing.assert_allclose(
         np.asarray(y)[:n], np.asarray(y_ref), rtol=1e-4, atol=1e-4
@@ -42,7 +42,7 @@ def test_dist_spmm_grad_matches(rng):
     ei = random_graph(rng, n, 300)
     mesh = dist.make_graph_mesh(8)
     sg = dist.shard_graph(ei, n, 8)
-    g = core.build_graph(ei, n, with_dense=False)
+    g = core.build_graph(ei, n)
     x = rng.normal(size=(sg.n_node_pad, 8)).astype(np.float32)
     ct = rng.normal(size=(sg.n_node_pad, 8)).astype(np.float32)
 
@@ -117,7 +117,7 @@ def test_ring_spmm_matches_single_device(rng):
     xd = jax.device_put(jnp.asarray(xp), sh)
     y = jax.jit(lambda x: dist.dist_spmm_ring(mesh, rg, x))(xd)
 
-    g = core.build_graph(ei, n, with_dense=False)
+    g = core.build_graph(ei, n)
     y_ref = spmm(g, jnp.asarray(x), "gather")
     np.testing.assert_allclose(
         np.asarray(y)[:n], np.asarray(y_ref), rtol=1e-4, atol=1e-4
@@ -129,7 +129,7 @@ def test_ring_spmm_grad(rng):
     ei = random_graph(rng, n, 250)
     mesh = dist.make_graph_mesh(8)
     rg = dist.shard_graph_ring(ei, n, 8)
-    g = core.build_graph(ei, n, with_dense=False)
+    g = core.build_graph(ei, n)
     x = rng.normal(size=(rg.n_node_pad, 8)).astype(np.float32)
     ct = rng.normal(size=(rg.n_node_pad, 8)).astype(np.float32)
     sh = NamedSharding(mesh, P("graph", None))

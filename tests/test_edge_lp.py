@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.linkpred import edge_lp
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.linkpred import edge_lp
 
 
 def setup(rng, n=40, m=30):
@@ -60,7 +60,7 @@ def test_run_xmc_lp_dedup_and_order(rng):
 
 @pytest.mark.slow
 def test_linkpred_with_edge_lp_modes(rng):
-    from gnn_tail_generalization_tpu.linkpred import model as lpm
+    from gnn_tail_generalization.linkpred import model as lpm
 
     n = 50
     e = core.symmetrize(
@@ -145,6 +145,6 @@ def test_build_edge_graph_scales():
     dt = time.time() - t0
     assert eg.shape[0] == 2 and eg.shape[1] >= 1_000_000
     # native C path: 0.24s measured; numpy fallback 2.4s — both depend on
-    # the package's numpy-THP-madvise fix (gnn_tail_generalization_tpu
+    # the package's numpy-THP-madvise fix (gnn_tail_generalization
     # __init__), without which this host streams numpy at ~20 MB/s
     assert dt < 60.0, f"1M-edge build took {dt:.1f}s"  # generous: host load varies

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.config import build_config
-from gnn_tail_generalization_tpu.data.datasets import prepare
-from gnn_tail_generalization_tpu.data.synthetic import synthetic_planetoid
-from gnn_tail_generalization_tpu.train import edgewise, loops
+from gnn_tail_generalization.config import build_config
+from gnn_tail_generalization.data.datasets import prepare
+from gnn_tail_generalization.data.synthetic import synthetic_planetoid
+from gnn_tail_generalization.train import edgewise, loops
 
 
 def setup():

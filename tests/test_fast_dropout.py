@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.nn.dropout import (
+from gnn_tail_generalization.nn.dropout import (
     FastDropout,
     fast_dropout_mask,
 )

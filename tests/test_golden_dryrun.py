@@ -17,7 +17,7 @@ import pytest
 
 @pytest.fixture(scope="module")
 def fake_cora_root(tmp_path_factory):
-    from gnn_tail_generalization_tpu.data.synthetic import (
+    from gnn_tail_generalization.data.synthetic import (
         write_fake_planetoid_raw,
     )
 
@@ -27,8 +27,8 @@ def fake_cora_root(tmp_path_factory):
 
 
 def _load(root, **over):
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import (
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import (
         load_dataset, prepare,
     )
 
@@ -41,7 +41,7 @@ def _load(root, **over):
 
 
 def test_fake_raw_roundtrips_through_real_reader(fake_cora_root):
-    from gnn_tail_generalization_tpu.data.planetoid import load_planetoid
+    from gnn_tail_generalization.data.planetoid import load_planetoid
 
     d = load_planetoid(fake_cora_root, "Cora")
     assert d.x.shape == (2708, 1433)
@@ -58,7 +58,7 @@ def test_golden_protocol_dryrun_traditional_gcn(fake_cora_root):
     """readme.md:47 protocol (SE=000) at full size, full 1500 epochs,
     epoch_block=100 — exactly what test_golden_cora_traditional_gcn runs
     per seed, on fake labels (finiteness + determinism, not accuracy)."""
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
     cfg, pd = _load(fake_cora_root, train_which="TeacherGNN",
                     whetherHasSE="000")
@@ -78,7 +78,7 @@ def test_golden_protocol_dryrun_traditional_gcn(fake_cora_root):
 @pytest.mark.slow
 def test_golden_protocol_dryrun_coldbrew_teacher(fake_cora_root):
     """readme.md:55 protocol (SE=100, se_reg=32) at full size."""
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
     cfg, pd = _load(fake_cora_root, train_which="TeacherGNN",
                     whetherHasSE="100", se_reg=32.0)
@@ -95,11 +95,11 @@ def test_golden_protocol_dryrun_coldbrew_teacher(fake_cora_root):
 def test_golden_protocol_dryrun_semlp_isolation(fake_cora_root):
     """readme.md:73 protocol (SEMLP topK=3, 2layer part1, dropout .5,
     adam 5e-3) at full size — teacher + part1 + part2, iso column."""
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import (
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import (
         load_dataset, prepare,
     )
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
     cfg = build_config(
         dataset="Cora", train_which="SEMLP", SEMLP_topK_2_replace=3,
@@ -124,7 +124,7 @@ def test_golden_protocol_dryrun_semlp_isolation(fake_cora_root):
 
 @pytest.fixture(scope="module")
 def fake_citeseer_root(tmp_path_factory):
-    from gnn_tail_generalization_tpu.data.synthetic import (
+    from gnn_tail_generalization.data.synthetic import (
         write_fake_planetoid_raw,
     )
 
@@ -137,7 +137,7 @@ def fake_citeseer_root(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def fake_pubmed_root(tmp_path_factory):
-    from gnn_tail_generalization_tpu.data.synthetic import (
+    from gnn_tail_generalization.data.synthetic import (
         write_fake_planetoid_raw,
     )
 
@@ -149,15 +149,14 @@ def fake_pubmed_root(tmp_path_factory):
 
 
 def _run_teacher_dryrun(root, dataset, n_node, n_feat, **over):
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import (
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import (
         load_dataset, prepare,
     )
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
-    # gather SpMM above the dense threshold: interpret-mode Pallas on the
-    # CPU gate is ~100x slow at Pubmed size (the Pallas path has its own
-    # TPU-faithful tests); Cora/Citeseer stay on the dense-MXU path
+    # the gather SpMM at every size: the protocol under test does not
+    # depend on the aggregation path, and gather is the fast one on CPU
     cfg = build_config(dataset=dataset, train_which="TeacherGNN",
                        want_headtail=True, num_layers=2,
                        use_special_split=True, spmm_method="gather",
@@ -206,11 +205,11 @@ def test_golden_protocol_dryrun_pubmed_coldbrew(fake_pubmed_root):
 
 
 def _run_student_dryrun(fake_cora_root, train_which):
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import (
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import (
         load_dataset, prepare,
     )
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
     cfg = build_config(dataset="Cora", train_which=train_which,
                        want_headtail=True, use_special_split=True)
@@ -243,25 +242,24 @@ def test_golden_protocol_dryrun_arxiv_best_config(tmp_path_factory):
     """base_options.py:412 — ogbn-arxiv best-config teacher (71.54) at
     real dims (169343 x 128) through the real OGB CSV loader on a
     generated fake raw set. Trains a SHORT run (50 epochs, block 25) —
-    the full 1500-epoch protocol at arxiv scale is a bench-length TPU
+    the full 1500-epoch protocol at arxiv scale is a bench-length GPU
     job, not a CPU test; the data-drop-day surface under test is the
     loader + best-config pipeline + full-size training step."""
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import (
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import (
         load_dataset, prepare,
     )
-    from gnn_tail_generalization_tpu.data.synthetic import (
+    from gnn_tail_generalization.data.synthetic import (
         write_fake_ogbn_arxiv_raw,
     )
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
     root = tmp_path_factory.mktemp("fakedata_arxiv")
     t0 = time.time()
     write_fake_ogbn_arxiv_raw(str(root))
     t_write = time.time() - t0
 
-    # gather SpMM: interpret-mode Pallas at 169k nodes x 50 epochs is
-    # hours on CPU; the Pallas path has its own TPU-faithful tests
+    # the gather SpMM, as at every size above the dense threshold
     cfg = build_config(dataset="ogbn-arxiv", train_which="TeacherGNN",
                        force_set_to_best_config=True, epochs=50,
                        spmm_method="gather")

@@ -36,11 +36,11 @@ requires_cora = pytest.mark.skipif(
 
 
 def _run_teacher(golden: float, tol: float, **over):
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import (
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import (
         load_dataset, prepare,
     )
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
     cfg = build_config(dataset="Cora", want_headtail=True, num_layers=2,
                        use_special_split=True, **over)
@@ -73,11 +73,11 @@ def test_golden_cora_coldbrew_teacher():
 @requires_cora
 def test_golden_cora_semlp_isolation():
     """readme.md:73 — Cold Brew SEMLP, isolation split: 72.50."""
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import (
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import (
         load_dataset, prepare,
     )
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.train import loops
 
     cfg = build_config(
         dataset="Cora", train_which="SEMLP", SEMLP_topK_2_replace=3,

@@ -1,8 +1,8 @@
 import pytest
 import numpy as np
 
-from gnn_tail_generalization_tpu.linkpred import heuristics as H
-from gnn_tail_generalization_tpu.graph import core
+from gnn_tail_generalization.linkpred import heuristics as H
+from gnn_tail_generalization.graph import core
 
 
 def small_graph():
@@ -74,10 +74,10 @@ def test_blocked_ppr_matches_per_source_power():
 @pytest.mark.slow
 def test_heuristics_at_100k_nodes():
     """CN/AA/PPR on a 100k-node power-law graph (ogbl-collab is 235k —
-    same regime; VERDICT r3 item 5). Timed to RESULTS.md."""
+    same regime; VERDICT r3 item 5)."""
     import time
 
-    from gnn_tail_generalization_tpu.data.synthetic import (
+    from gnn_tail_generalization.data.synthetic import (
         fast_powerlaw_graph,
     )
 

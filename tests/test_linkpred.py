@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.linkpred import (
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.linkpred import (
     losses, metrics, model as lpm, sampling,
 )
-from gnn_tail_generalization_tpu.linkpred.encoders import GNNEncoder
+from gnn_tail_generalization.linkpred.encoders import GNNEncoder
 
 
 def ring_graph(n=50):
@@ -98,7 +98,7 @@ def test_transformer_attention_sums_to_one(rng):
     e = ring_graph(n)
     g = core.build_graph(e, n)
     # attention output of constant v should equal v itself + skip
-    from gnn_tail_generalization_tpu.linkpred.encoders import TransformerConv
+    from gnn_tail_generalization.linkpred.encoders import TransformerConv
 
     x = jnp.asarray(rng.normal(size=(n, 8)).astype(np.float32))
     conv = TransformerConv(out_channels=8)
@@ -149,18 +149,18 @@ def test_heuristic_encoder_short_circuit(rng):
 
 
 def test_linkpred_bf16_aggregation_trains(rng):
-    """spmm_method='pallas_bf16' threads through the encoder stack; small
-    run stays finite and produces sane stats."""
+    """spmm_method='bf16_operands' threads through the encoder stack;
+    small run stays finite and produces sane stats."""
     import dataclasses
 
-    from gnn_tail_generalization_tpu.linkpred import model as lpm
+    from gnn_tail_generalization.linkpred import model as lpm
 
     n = 120
     e = np.stack([rng.integers(0, n, 700), rng.integers(0, n, 700)])
     x = rng.normal(size=(n, 16)).astype(np.float32)
     cfg = lpm.LinkPredConfig(encoder="SAGE", use_node_feats=True,
                              train_node_emb=False, batch_size=256,
-                             spmm_method="pallas_bf16")
+                             spmm_method="bf16_operands")
     out = lpm.train_linkpred(cfg, x, e, n, epochs=3, runs=1, eval_steps=3)
     s = out["stats"]
     assert np.isfinite(s["test_mean"])
@@ -199,7 +199,7 @@ def test_predict_chunked_matches_whole():
     out = lpm.train_linkpred(cfg, x, e, n, epochs=1, runs=1)
     params = out["params"]
     model = lpm.LinkPredModel(cfg, n, 8)
-    from gnn_tail_generalization_tpu.graph.core import symmetrize
+    from gnn_tail_generalization.graph.core import symmetrize
     g = core.build_graph(
         symmetrize(np.asarray(out["split_edge"]["train"]["edge"]).T, n), n)
     const = {"g": g, "x": jnp.asarray(x)}
@@ -258,7 +258,7 @@ def test_hoisted_first_agg_matches_unhoisted_encode(rng, kind):
     """encode(agg0=hoisted_first_agg(...)) == encode() — the hoist is pure
     CSE for SAGE/WSAGE (identical ops); GCN reassociates A@(xW) to (A@x)W
     (exact in math, equal to f32 tolerance)."""
-    from gnn_tail_generalization_tpu.linkpred.encoders import (
+    from gnn_tail_generalization.linkpred.encoders import (
         hoistable, hoisted_first_agg,
     )
 

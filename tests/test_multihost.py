@@ -20,7 +20,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 addr, pid = sys.argv[1], int(sys.argv[2])
-from gnn_tail_generalization_tpu.parallel import multihost as mh
+from gnn_tail_generalization.parallel import multihost as mh
 
 mh.initialize_multihost(coordinator_address=addr, num_processes=2,
                         process_id=pid)
@@ -29,8 +29,8 @@ assert jax.device_count() == 8, jax.device_count()
 assert len(jax.local_devices()) == 4
 
 import jax.numpy as jnp
-from gnn_tail_generalization_tpu.parallel import distgraph as dgm
-from gnn_tail_generalization_tpu.ops.spmm import spmm
+from gnn_tail_generalization.parallel import distgraph as dgm
+from gnn_tail_generalization.ops.spmm import spmm
 
 mesh = mh.make_multihost_graph_mesh()
 # host-major ordering: first 4 mesh devices belong to process 0
@@ -45,7 +45,7 @@ dense = np.zeros((n, n), np.float32)
 np.add.at(dense, (dst, src), w)
 
 dg = dgm.build_dist_graph(np.stack([src, dst]), n, mesh, edge_weight=w,
-                          rb=8, eb=16)
+                          rb=8)
 npad = dg.n_node_pad
 sh = jax.sharding.NamedSharding(
     mesh, jax.sharding.PartitionSpec("graph", None))
@@ -67,16 +67,16 @@ assert err_y < 1e-3 and err_dx < 1e-3, (err_y, err_dx)
 
 # 2-epoch real-teacher training across the two hosts
 import dataclasses
-from gnn_tail_generalization_tpu.config import (
+from gnn_tail_generalization.config import (
     apply_arch_configs, build_config,
 )
-from gnn_tail_generalization_tpu.data.datasets import (
+from gnn_tail_generalization.data.datasets import (
     NodeData, prepare_sharded,
 )
-from gnn_tail_generalization_tpu.data.synthetic import (
+from gnn_tail_generalization.data.synthetic import (
     synthetic_features_labels,
 )
-from gnn_tail_generalization_tpu.train import loops
+from gnn_tail_generalization.train import loops
 
 cfg = build_config(dataset="Cora", train_which="TeacherGNN",
                    whetherHasSE="100", se_reg=0.5)
@@ -88,13 +88,13 @@ train = np.zeros(n, bool); train[:48] = True
 data = NodeData(x=xf, y=yf, edge_index=np.stack([src, dst]),
                 train_mask=train, val_mask=None, test_mask=~train,
                 name="mh-test")
-pd = prepare_sharded(data, cfg, mesh, rb=8, eb=16)
+pd = prepare_sharded(data, cfg, mesh, rb=8)
 res = loops.train_teacher(cfg, pd, seed=0, epochs=2)
 assert np.isfinite(res.records).all()
 
 # sharded checkpoint across the process group: each process writes only
 # its addressable shards, restore reassembles the global arrays
-from gnn_tail_generalization_tpu.train.checkpoint import (
+from gnn_tail_generalization.train.checkpoint import (
     load_sharded_state, save_sharded_state,
 )
 

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.nn.backbone import TricksCombBackbone
-from gnn_tail_generalization_tpu.nn.gcn import GCNConv
-from gnn_tail_generalization_tpu.nn import norms
-from gnn_tail_generalization_tpu.ops.topk_attention import latent_neighbor_replace
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.nn.backbone import TricksCombBackbone
+from gnn_tail_generalization.nn.gcn import GCNConv
+from gnn_tail_generalization.nn import norms
+from gnn_tail_generalization.ops.topk_attention import latent_neighbor_replace
 
 
 def small_graph(rng, n=12, e=40):
@@ -173,7 +173,7 @@ def test_latent_neighbor_replace_bf16_scores(rng):
     """bf16-scored selection agrees with the f32 path on well-separated
     scores (f32 accumulation keeps ranking stable)."""
     import jax.numpy as jnp
-    from gnn_tail_generalization_tpu.ops.topk_attention import (
+    from gnn_tail_generalization.ops.topk_attention import (
         latent_neighbor_replace,
     )
 

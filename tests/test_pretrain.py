@@ -3,9 +3,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.baselines import structure_pretrain as sp
-from gnn_tail_generalization_tpu.baselines.pretrain_gin import train_pretrain_gin
-from gnn_tail_generalization_tpu.graph import core
+from gnn_tail_generalization.baselines import structure_pretrain as sp
+from gnn_tail_generalization.baselines.pretrain_gin import train_pretrain_gin
+from gnn_tail_generalization.graph import core
 
 
 def graph_and_feats(rng, n=50):
@@ -71,7 +71,7 @@ def test_context_graph_builder_ring():
     exactly {c+1, c+2, c+3}; overlap (k_sub=2) is {c+1, c+2}; context
     edges are the chain between consecutive ring nodes."""
     import numpy as np
-    from gnn_tail_generalization_tpu.baselines.pretrain_gin import (
+    from gnn_tail_generalization.baselines.pretrain_gin import (
         build_context_graphs,
     )
 

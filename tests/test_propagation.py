@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gnn_tail_generalization_tpu.config import build_config
-from gnn_tail_generalization_tpu.data.datasets import NodeData, prepare
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.propagation import correlation as corr
-from gnn_tail_generalization_tpu.propagation import cs, diffusion
+from gnn_tail_generalization.config import build_config
+from gnn_tail_generalization.data.datasets import NodeData, prepare
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.propagation import correlation as corr
+from gnn_tail_generalization.propagation import cs, diffusion
 
 
 def two_cluster_data(rng, n=120, intra=400):
@@ -47,7 +47,7 @@ def test_gen_normalized_adjs_rowsums():
     e = np.array([[0, 1, 2, 0], [1, 2, 0, 2]])
     dad, da, ad = corr.gen_normalized_adjs(e, 3)
     x = jnp.ones((3, 1))
-    from gnn_tail_generalization_tpu.ops.spmm import spmm
+    from gnn_tail_generalization.ops.spmm import spmm
 
     # DA is row-stochastic: D^-1 A -> row sums 1
     np.testing.assert_allclose(np.asarray(spmm(da, x)), 1.0, rtol=1e-5)
@@ -116,7 +116,7 @@ def test_louvain_recovers_planted_communities(rng):
     """3-block SBM with strong intra-block density: Louvain must recover a
     partition highly aligned with the planted blocks (adjusted-agreement
     via majority mapping > 0.9)."""
-    from gnn_tail_generalization_tpu.propagation.diffusion import (
+    from gnn_tail_generalization.propagation.diffusion import (
         louvain_communities,
     )
 
@@ -145,9 +145,9 @@ def test_pre_step_embedding_cache(tmp_path, rng):
     from disk (the reference's LP/embeddings/*.pt cache contract)."""
     import dataclasses
 
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import NodeData, prepare
-    from gnn_tail_generalization_tpu.propagation import cs
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import NodeData, prepare
+    from gnn_tail_generalization.propagation import cs
 
     n = 80
     cfg = build_config(dataset="Cora", train_which="LP")
@@ -174,14 +174,13 @@ def test_spectral_and_prestep_at_arxiv_scale():
     Julia/Arpack replacement, norm_spec.jl:39-64) and the full C&S
     PreStep concat (diffusion + spectral + community,
     diffusion_feature.py:115-169) at ogbn-arxiv dimensions (169343
-    nodes, k=128). Measured on this image (RESULTS.md round 5):
-    spectral ~190 s, diffusion ~35 s, Louvain ~105 s."""
+    nodes, k=128). Each part takes minutes on a CPU host."""
     import time
 
-    from gnn_tail_generalization_tpu.data.synthetic import (
+    from gnn_tail_generalization.data.synthetic import (
         fast_powerlaw_graph,
     )
-    from gnn_tail_generalization_tpu.propagation.diffusion import (
+    from gnn_tail_generalization.propagation.diffusion import (
         community_features, dad_adjacency, diffusion_features,
         spectral_embedding,
     )

@@ -2,17 +2,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.ops.spmm import spmm, spmm_normalized
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.ops.spmm import spmm, spmm_normalized
 
 
-def random_graph(rng, n=50, e=300, with_dense=True):
+def random_graph(rng, n=50, e=300):
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
     w = rng.normal(size=e).astype(np.float32)
-    g = core.build_graph(
-        np.stack([src, dst]), n, edge_weight=w, with_dense=with_dense
-    )
+    g = core.build_graph(np.stack([src, dst]), n, edge_weight=w)
     dense = np.zeros((n, n), dtype=np.float64)
     np.add.at(dense, (dst, src), w)
     return g, dense
@@ -22,13 +20,6 @@ def test_spmm_gather_matches_dense_reference(rng):
     g, dense = random_graph(rng)
     x = rng.normal(size=(50, 16)).astype(np.float32)
     y = spmm(g, jnp.asarray(x), "gather")
-    np.testing.assert_allclose(np.asarray(y), dense @ x, rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_dense_path_matches(rng):
-    g, dense = random_graph(rng)
-    x = rng.normal(size=(50, 16)).astype(np.float32)
-    y = spmm(g, jnp.asarray(x), "dense")
     np.testing.assert_allclose(np.asarray(y), dense @ x, rtol=1e-4, atol=1e-4)
 
 
@@ -44,20 +35,8 @@ def test_spmm_grad_is_transpose(rng):
     np.testing.assert_allclose(np.asarray(dx), dense.T @ ct, rtol=1e-4, atol=1e-4)
 
 
-def test_spmm_grad_dense_path(rng):
-    g, dense = random_graph(rng)
-    x = rng.normal(size=(50, 8)).astype(np.float32)
-    ct = rng.normal(size=(50, 8)).astype(np.float32)
-
-    def f(x):
-        return jnp.vdot(spmm(g, x, "dense"), jnp.asarray(ct))
-
-    dx = jax.grad(f)(jnp.asarray(x))
-    np.testing.assert_allclose(np.asarray(dx), dense.T @ ct, rtol=1e-4, atol=1e-4)
-
-
 def test_spmm_edge_weight_grad_is_sddmm(rng):
-    from gnn_tail_generalization_tpu.ops.spmm import spmm_edge_grad
+    from gnn_tail_generalization.ops.spmm import spmm_edge_grad
 
     g, dense = random_graph(rng)
     x = jnp.asarray(rng.normal(size=(50, 8)).astype(np.float32))
@@ -93,39 +72,8 @@ def test_spmm_normalized_matches_manual(rng):
     np.testing.assert_allclose(np.asarray(y), expect, rtol=1e-4, atol=1e-4)
 
 
-def test_spmm_normalized_baked_plans(rng):
-    """with_norm_plans=True bakes D_in^-1/2 A D_out^-1/2 into the Pallas
-    plan weights; spmm_normalized then runs ONE SpMM with no elementwise
-    scale passes — fwd and grad must match the explicit gather path."""
-    n, e = 50, 260
-    src = rng.integers(0, n, e)
-    dst = rng.integers(0, n, e)
-    g = core.build_graph(np.stack([src, dst]), n, with_dense=False,
-                         with_plans=True, with_norm_plans=True)
-    assert g.plans_norm is not None
-    # index arrays are shared with the unnormalized plans (weights differ)
-    assert g.plans_norm[0].senders is g.plans[0].senders
-    x = rng.normal(size=(n, 8)).astype(np.float32)
-    ct = rng.normal(size=(n, 8)).astype(np.float32)
-
-    dout = np.maximum(np.bincount(src, minlength=n), 1).astype(np.float64)
-    din = np.maximum(np.bincount(dst, minlength=n), 1).astype(np.float64)
-    a = np.zeros((n, n))
-    np.add.at(a, (dst, src), 1.0)
-    ahat = din[:, None] ** -0.5 * a * dout[None, :] ** -0.5
-
-    y = spmm_normalized(g, jnp.asarray(x), "both")
-    np.testing.assert_allclose(np.asarray(y), ahat @ x, rtol=1e-4, atol=1e-4)
-
-    dx = jax.grad(
-        lambda x: jnp.vdot(spmm_normalized(g, x, "both"), jnp.asarray(ct))
-    )(jnp.asarray(x))
-    np.testing.assert_allclose(np.asarray(dx), ahat.T @ ct,
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_spmm_jit_under_vmap_free(rng):
-    g, dense = random_graph(rng, with_dense=False)
+    g, dense = random_graph(rng)
     x = jnp.asarray(rng.normal(size=(50, 16)).astype(np.float32))
     y = jax.jit(lambda x: spmm(g, x))(x)
     np.testing.assert_allclose(np.asarray(y), dense @ np.asarray(x), rtol=1e-4, atol=1e-4)
@@ -135,13 +83,13 @@ def test_edge_grad_padding_weights_masked(rng):
     """Caller-provided edge weights (e.g. sigmoid(0)=0.5 at init) must NOT
     aggregate through the static-shape padding self-loops at the last
     node (round-2 review finding)."""
-    from gnn_tail_generalization_tpu.graph import core
-    from gnn_tail_generalization_tpu.ops.spmm import spmm_edge_grad
+    from gnn_tail_generalization.graph import core
+    from gnn_tail_generalization.ops.spmm import spmm_edge_grad
 
     n = 10
     src = np.asarray([0, 1, 2, 3])
     dst = np.asarray([4, 4, 5, 6])
-    g = core.build_graph(np.stack([src, dst]), n, with_dense=False,
+    g = core.build_graph(np.stack([src, dst]), n,
                          pad_multiple=8)  # 4 padding edges at (9 -> 9)
     assert g.e_pad > g.n_edge
     x = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
@@ -152,21 +100,15 @@ def test_edge_grad_padding_weights_masked(rng):
     np.add.at(dense, (dst, src), 0.5)
     np.testing.assert_allclose(np.asarray(y), dense @ np.asarray(x),
                                rtol=1e-5, atol=1e-6)
-    # dense method rebuilds the dense adjacency from the new weights
-    g2 = core.build_graph(np.stack([src, dst]), n, with_dense=True,
-                          pad_multiple=8)
-    y2 = spmm_edge_grad(g2, x, w, "dense")
-    np.testing.assert_allclose(np.asarray(y2), dense @ np.asarray(x),
-                               rtol=1e-5, atol=1e-6)
 
 
 def test_se_dim_single_layer():
-    from gnn_tail_generalization_tpu.nn.backbone import TricksCombBackbone
+    from gnn_tail_generalization.nn.backbone import TricksCombBackbone
 
     bb = TricksCombBackbone(num_feats=10, num_classes=7, dim_hidden=16,
                             num_layers=1, n_node=20, dropout=0.0)
     g_np = np.stack([np.arange(20), (np.arange(20) + 1) % 20])
-    from gnn_tail_generalization_tpu.graph import core
+    from gnn_tail_generalization.graph import core
 
     g = core.build_graph(g_np, 20)
     x = jnp.zeros((20, 10))

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from gnn_tail_generalization_tpu.linkpred import surgery
-from gnn_tail_generalization_tpu.linkpred.surgery import GraphData
+from gnn_tail_generalization.linkpred import surgery
+from gnn_tail_generalization.linkpred.surgery import GraphData
 
 
 def make_graph(rng, n=100, e=400, with_years=True):
@@ -103,7 +103,7 @@ def test_transfer_surgery_edge_year(rng, setting):
 
 
 def test_transfer_split_feeds_linkpred_trainer(rng):
-    from gnn_tail_generalization_tpu.linkpred import model as lpm
+    from gnn_tail_generalization.linkpred import model as lpm
 
     g = make_graph(rng, n=120, e=900)
     out, se = surgery.transfer_surgery_node_year(g, "i2t", lo=2012, hi=2016)

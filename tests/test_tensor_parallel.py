@@ -3,9 +3,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.parallel import distributed as dist
-from gnn_tail_generalization_tpu.parallel import tensor_parallel as tp
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.parallel import distributed as dist
+from gnn_tail_generalization.parallel import tensor_parallel as tp
 
 
 def test_2d_train_step_runs_and_learns(rng):

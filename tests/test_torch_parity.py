@@ -4,7 +4,7 @@ allclose vs PyTorch-Geometric reference').
 
 The torch model here is written from the documented formulas
 (GNN_model/GCN.py:205-250: X' = D_in^-1/2 A (D_out^-1/2 X W + E) + b), not
-copied from the reference; weights are transplanted from the flax params so
+copied from the reference; weights are transplanted from the JAX params so
 both frameworks compute the same function.
 """
 import numpy as np
@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from gnn_tail_generalization_tpu.graph import core
-from gnn_tail_generalization_tpu.nn.backbone import TricksCombBackbone
+from gnn_tail_generalization.graph import core
+from gnn_tail_generalization.nn.backbone import TricksCombBackbone
 
 
 def build_graph(rng, n=30):
@@ -95,8 +95,8 @@ def test_adam_update_matches_torch(rng):
     optax chain of train/optim.py (L2-coupled, not AdamW)."""
     import optax
 
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.train.optim import make_optimizer
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.train.optim import make_optimizer
 
     w0 = rng.normal(size=(5, 3)).astype(np.float32)
     grad = rng.normal(size=(5, 3)).astype(np.float32)
@@ -123,9 +123,9 @@ def test_training_dynamics_match_torch(rng):
     or forward-only parity misses."""
     import dataclasses
 
-    from gnn_tail_generalization_tpu.config import build_config
-    from gnn_tail_generalization_tpu.data.datasets import NodeData, prepare
-    from gnn_tail_generalization_tpu.train import loops
+    from gnn_tail_generalization.config import build_config
+    from gnn_tail_generalization.data.datasets import NodeData, prepare
+    from gnn_tail_generalization.train import loops
 
     n, f, h, c = 40, 12, 8, 4
     src = rng.integers(0, n, 160)
